@@ -8,8 +8,8 @@ here to:
   oracle  — pure-NumPy float64 (cpu.lua, the readable reference)
   native  — C++ solver via ctypes (cpu-raw.lua, the raw-pointer CPU path)
   xla     — jnp ops on the default JAX backend (gpu.lua's role)
-  pallas  — fused TPU kernels (the gpu.lua kernels gone TPU-native)
-  auto    — pallas fine levels + xla coarse levels (cpu-gpu.lua's
+  pallas  — the Hopper smoother kernel where it applies (GPU only)
+  auto    — kernel fine levels + xla coarse levels (cpu-gpu.lua's
             heterogeneous split, reborn as a level-size threshold)
 
 Usage: python -m mgpoisson.bench.harness [--sizes 64,256,1024] \

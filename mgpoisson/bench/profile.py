@@ -21,10 +21,9 @@ import jax
 
 @contextlib.contextmanager
 def trace(log_dir: str, create_perfetto_link: bool = False):
-    """Capture a jax.profiler trace of the enclosed block, making sure
-    queued device work is flushed with a real host sync on exit
-    (block_until_ready alone does not synchronize through remote-relay
-    transports — see mgpoisson.bench.timing)."""
+    """Capture a jax.profiler trace of the enclosed block.  Wait for
+    the block's results (mgpoisson.bench.timing.sync) inside it, or the
+    trace stops before the device work it queued has run."""
     jax.profiler.start_trace(log_dir,
                              create_perfetto_link=create_perfetto_link)
     try:

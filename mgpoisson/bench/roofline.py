@@ -3,8 +3,7 @@
 The reference only ever wall-clocks whole runs and left OpenCL event
 timing as a TODO (`test/test-gpu-obj.lua:268`).  Here every hot op is
 timed individually (overhead-cancelled chained timing) and reported as
-achieved GB/s against the chip's HBM peak — the BASELINE.md metric
-(smoother >= 80% of roofline).
+achieved GB/s against the card's HBM peak from PEAKS.
 
 Usage: python -m mgpoisson.bench.roofline [--size 4096] [--dtype float32]
 """
@@ -18,7 +17,20 @@ import jax.numpy as jnp
 
 from mgpoisson.bench.timing import chain_time
 
-HBM_PEAK_GBPS = {"tpu": 819.0}     # v5e; extend per platform as needed
+# Published peaks by jax Device.device_kind.  Source: NVIDIA H100 Tensor
+# Core GPU data sheet, SXM5 part (80 GB HBM3 at 3.35 TB/s; 67 TFLOP/s
+# float32 outside the tensor cores), at the full 700 W power limit.
+PEAKS = {
+    "NVIDIA H100 80GB HBM3": {"hbm_gbps": 3350.0, "f32_tflops": 67.0},
+}
+
+
+def hbm_peak_gbps(device_kind: str) -> float:
+    """HBM peak of a device kind; a device not in PEAKS is an error."""
+    if device_kind not in PEAKS:
+        raise KeyError(f"no published peak for device {device_kind!r}; "
+                       "add it to mgpoisson.bench.roofline.PEAKS")
+    return PEAKS[device_kind]["hbm_gbps"]
 
 
 def report(size: int = 4096, dtype: str = "float32", nu: int = 2):
@@ -32,7 +44,10 @@ def report(size: int = 4096, dtype: str = "float32", nu: int = 2):
     h = spec.fine_h
     itemsize = jnp.dtype(dtype).itemsize
     cells = size * size
-    peak = HBM_PEAK_GBPS.get(jax.default_backend())
+    dev = jax.devices()[0]
+    # device metrics only on the GPU; a CPU run reports times alone
+    peak = hbm_peak_gbps(dev.device_kind) if dev.platform == "gpu" \
+        else None
 
     f = jnp.zeros((size, size), jnp.dtype(dtype)) \
         .at[size // 2, size // 2].set(-1e6)
@@ -43,10 +58,9 @@ def report(size: int = 4096, dtype: str = "float32", nu: int = 2):
     # Every fn's operands are data-dependent on the chained carry — a
     # constant operand would be loop-invariant-hoisted out of the
     # timing scan — and f/V are passed as chain_time consts, NOT closed
-    # over (a closed-over device array is serialized into the
-    # remote-compile payload; see bench/timing.py).  The runtime zero
+    # over (see bench/timing.py).  The runtime zero
     # `z` ties discarded outputs into the carry so XLA cannot
-    # dead-code-eliminate them on non-Pallas paths.
+    # dead-code-eliminate them.
     entries = [
         (f"smooth wjacobi x{nu} (fused)",
          lambda c, ff, VV, z: ops.smooth(c, ff, h, nu, "wjacobi",
@@ -82,8 +96,8 @@ def report(size: int = 4096, dtype: str = "float32", nu: int = 2):
 
     z = jnp.zeros((), jnp.dtype(dtype))
     rows = []
-    print(f"platform={jax.default_backend()} size={size} dtype={dtype} "
-          f"peak={peak} GB/s")
+    print(f"platform={dev.platform} device_kind={dev.device_kind} "
+          f"size={size} dtype={dtype} peak={peak} GB/s")
     print(f"{'op':40s} {'ms':>9s} {'GB/s':>9s} {'% peak':>8s}")
     for label, fn, nbytes in entries:
         t = chain_time(fn, u, consts=(f, V, z))

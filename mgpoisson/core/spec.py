@@ -36,9 +36,9 @@ class Spec:
       ndim: 2 or 3 (reference is 2D only; 3D is a capability extension —
         BASELINE.json config 4).
       dtype: 'float32' | 'float64' | 'bfloat16'.  The reference prefers
-        fp64 devices and falls back to fp32 (`gpu.lua:7-15,32`); on TPU
-        f32 is the native fast path and f64 is emulated, so f32 is the
-        default with f64 available for oracle-parity runs.
+        fp64 devices and falls back to fp32 (`gpu.lua:7-15,32`); f32 is
+        the default, f64 is there for oracle-parity runs (it needs
+        jax_enable_x64).
       sweep_dtype: optional narrower dtype for the V-cycle itself
         (mixed-precision iterative refinement).  When set and different
         from dtype, each solver step computes the true residual
@@ -51,8 +51,7 @@ class Spec:
         bf16 — a pure-bf16 solve, by contrast, stalls immediately: the
         fine-level residual of a smoothed iterate is all cancellation
         below bf16's ~3 decimal digits.  Works on the single-device,
-        gspmd, and explicit-spmd paths (the spmd strip-kernel plan
-        re-resolves for the narrower dtype per shard).
+        gspmd, and explicit-spmd paths.
       scheme:
         'reference' — exact parity with the reference algorithm:
           zero-ghost Dirichlet at every level, constant-injection
@@ -71,8 +70,8 @@ class Spec:
           Gauss-Seidel 1+1: each sweep costs ~2 stencil passes yet the
           cycle COUNT collapses on spike-dominated starts at scale (the
           reference's point-charge problem converges to 1e-10 relative
-          residual in 2 cycles at 4096^2 vs 9 for 'tuned' — 5x less
-          total compute, measured on v5e; see tools/tune_scheme.py).
+          residual in 2 cycles at 4096^2 vs 9 for 'tuned'; see
+          tools/tune_scheme.py).
           The collapse is a large-grid effect: r0 ~ ||f||*4/h^2, so
           the relative gate loosens as h shrinks (at 64^2 'fast' needs
           ~9 cycles).  Prefer 'tuned' for smooth broad-spectrum
@@ -80,8 +79,8 @@ class Spec:
           level-independent one.
       smoother: 'auto' (scheme default) | 'jacobi' (undamped, the
         reference default, `cpu.lua:57`) | 'wjacobi' (damped Jacobi,
-        omega = 2d/(2d+1) — the tuned default: the cheapest sweep on the
-        VPU with a level-independent rate (~0.10 at 3+3); prefer 'rbgs'
+        omega = 2d/(2d+1) — the tuned default: the cheapest sweep with a
+        level-independent rate (~0.10 at 3+3); prefer 'rbgs'
         to minimize cycle COUNT on spike-dominated starts — it needs
         fewer cycles but each sweep costs ~2x) | 'rbgs' (red-black
         Gauss-Seidel — the deterministic parallel form of the
@@ -94,9 +93,9 @@ class Spec:
         criterion (`cpu.lua:203`); 'residual' — relative true-residual
         norm ||r||/||r0||, the BASELINE.json metric.
       stop_check: how often the stopping metric is evaluated when
-        stop='residual'.  'every' — exact ||r|| each cycle (fused into
-        the up-leg kernel, but still ~one extra stencil pass over the
-        post-smooth iterate, measured 4-5% of the cycle).  'adaptive' —
+        stop='residual'.  'every' — exact ||r|| each cycle (one extra
+        residual pass over the post-smooth iterate, fused by XLA into
+        the up-leg's epilogue where it can).  'adaptive' —
         cycles whose *predicted* residual (last measured ||r|| times a
         learned per-cycle contraction factor) is far above tol skip the
         metric pass entirely; the exact norm is computed only when the
@@ -104,8 +103,7 @@ class Spec:
         ADAPTIVE_MAX_SKIP cycles (bounds both mis-prediction and NaN
         detection latency).  Stopping decisions use only MEASURED
         values, so the converged answer is identical; skipped entries
-        in the error history hold the model's estimate.  Amortized
-        metric overhead drops under ~2% of solve time.  Supported on
+        in the error history hold the model's estimate.  Supported on
         the single-device, gspmd, and explicit-spmd paths; rejected
         under mixed-precision refinement (whose step computes the
         full-precision residual every cycle anyway).
@@ -115,12 +113,17 @@ class Spec:
         1/(size+1) (`test/test-gpu-obj.lua:252`) — pass explicitly to
         reproduce that variant.
       cycle: 'v' (the reference's only cycle, named twoGrid) | 'w' | 'fmg'.
-      backend: 'auto' | 'xla' | 'pallas'.  'auto' uses Pallas kernels on
-        TPU for levels with side >= pallas_min_size and XLA ops below
-        (the TPU analog of the hybrid variant's cpuDepth switch,
-        `cpu-gpu.lua:17-52`: tiny grids are launch-latency-bound on the
-        accelerator path).
-      pallas_min_size: level side below which 'auto' falls back to XLA ops.
+      backend: 'auto' | 'xla' | 'pallas'.  'auto' runs the Hopper
+        smoother kernel (mgpoisson.kernels.hopper) on a GPU for the
+        levels where it was measured faster - unsharded 2D f32 Jacobi
+        and damped Jacobi with 3+ sweeps, side >= pallas_min_size - and
+        XLA ops everywhere else (the hybrid variant's cpuDepth switch,
+        `cpu-gpu.lua:17-52`, in another guise: small grids are
+        launch-bound).  'pallas' is the same dispatch but fails off a
+        GPU; 'xla' never uses the kernel.
+      pallas_min_size: level side below which the kernel is not used
+        (4096: at 2048^2 and below it measured no faster than XLA on an
+        H100; PERF.md).
       coarse_size: side length of the coarsest level; the reference
         recurses to 1x1 and applies a single smoother step there
         (`cpu.lua:76-94`).
@@ -129,12 +132,10 @@ class Spec:
       partition: how sharded execution is expressed — 'gspmd' (layout
         constraints per level; XLA's SPMD partitioner inserts the halo
         collectives), 'spmd' (explicit shard_map with hand-written
-        ppermute halo exchange, mgpoisson.shard.spmd — the only path
-        that runs the fused Pallas strip kernels per shard, and
-        therefore the fast one at scale), or 'auto' (the default:
-        'spmd' whenever the mesh has the ('x','y') axes its
-        collectives address, else 'gspmd' — so construction with a
-        mesh dispatches to the strip kernels out of the box).
+        ppermute halo exchange, one deep halo per smoothing phase,
+        mgpoisson.shard.spmd), or 'auto' (the default: 'spmd' whenever
+        the mesh has the ('x','y') axes its collectives address, else
+        'gspmd').
       replicate_below: level side at or below which sharded execution
         switches to replicated arrays (the cpuDepth handoff reborn:
         coarse grids are collective-latency-bound; `test/test.lua:42`
@@ -156,7 +157,7 @@ class Spec:
     h: Optional[float] = None
     cycle: str = "v"
     backend: str = "auto"
-    pallas_min_size: int = 256
+    pallas_min_size: int = 4096
     coarse_size: int = 1
     mesh_shape: Optional[Tuple[int, ...]] = None
     partition: str = "auto"

@@ -1,16 +1,17 @@
 """Kernel layer: the grid-point operations of the reference's L1
 (OpenCL kernels `gpu.lua:37-202`, FFI loops `cpu-raw.lua:8-114`),
-implemented two ways behind one interface:
+behind one interface implemented two ways:
 
-- `mgpoisson.kernels.xla`   — pure jnp, rank-polymorphic (2D/3D), runs
-  anywhere; XLA fuses the pad/shift stencils.
-- `mgpoisson.kernels.pallas`— TPU Pallas kernels for the hot 2D path:
-  fused multi-sweep smoothers (one HBM round-trip for all nu sweeps)
-  and fused residual+restrict.
+- `mgpoisson.kernels.xla`    - pure jnp, rank-polymorphic (2D/3D), runs
+  on every backend; XLA fuses the pad/shift stencils.
+- `mgpoisson.kernels.hopper` - the 2D temporally blocked smoother as a
+  Pallas kernel for NVIDIA GPUs (Triton route); every other op is
+  XLA's.
 
-`get_ops(spec, level_size)` picks the backend per level: Pallas on TPU
-for levels at least `spec.pallas_min_size` wide, XLA otherwise — the
-TPU analog of the reference hybrid's cpuDepth switch (`cpu-gpu.lua:17-52`).
+`get_ops(spec, level_size)` is the one place that decides which a level
+runs - the analog of the reference hybrid's cpuDepth switch
+(`cpu-gpu.lua:17-52`): small grids are launch-bound, so the kernel only
+takes levels at least `spec.pallas_min_size` wide.
 """
 
 from __future__ import annotations
@@ -20,49 +21,33 @@ import jax
 from mgpoisson.kernels import xla
 
 
-def _tpu_available() -> bool:
-    try:
-        return jax.default_backend() == "tpu"
-    except Exception:  # pragma: no cover
-        return False
+def on_gpu() -> bool:
+    return jax.default_backend() == "gpu"
 
 
 def get_ops(spec, level_size: int):
-    """Return the op module to use for a level of side `level_size`."""
+    """Return the op module to use for a level of side `level_size`.
+
+    backend='xla' always gets XLA.  backend='pallas' asks for the
+    kernel and fails off a GPU (the kernel has no compiled form
+    elsewhere).  On a GPU both 'auto' and 'pallas' take the kernel for
+    unsharded 2D levels of side >= spec.pallas_min_size whose dtype,
+    smoother and sweep counts it was measured to win
+    (`hopper.preferred`); every other level runs XLA."""
     if spec.backend == "xla":
         return xla
-    if spec.smoother_resolved == "gs_lex":
-        # sequential scan smoother — XLA-only by construction
+    if not on_gpu():
+        if spec.backend == "pallas":
+            raise ValueError("backend='pallas' needs a GPU; the platform "
+                             f"is {jax.default_backend()!r}")
         return xla
-    if spec.mesh_shape is not None:
-        # Under a device mesh the GSPMD partitioner cannot split a
-        # pallas_call (no partitioning rule for the custom call), so a
-        # sharded operand would be all-gathered onto one device — worse
-        # than the XLA ops it replaces.  Force the XLA formulations,
-        # whose stencils partition cleanly (halo collectives inserted
-        # by XLA).  This fence applies to the GSPMD path only: the
-        # explicit partition (spec.partition='spmd') runs the fused
-        # strip kernels per shard inside shard_map — see
-        # mgpoisson.shard.spmd (it dispatches itself, not via get_ops).
+    from mgpoisson.kernels import hopper
+    if (spec.ndim != 2 or spec.mesh_shape is not None
+            or level_size < spec.pallas_min_size
+            or not all(hopper.preferred(spec.dtype,
+                                        spec.smoother_resolved, nu)
+                       for nu in (spec.nu_pre, spec.nu_post))):
+        # Under a mesh the partitioner cannot split a pallas_call, and
+        # shard/spmd.py runs its own per-shard XLA sweeps.
         return xla
-    if spec.ndim == 3:
-        # 3D: the fused multi-sweep smoother is Pallas (the other ops
-        # delegate to XLA inside the module); size gating happens in
-        # pallas._supported3 by total bytes, so level_size isn't
-        # compared against pallas_min_size here
-        if spec.backend == "pallas" or (
-                spec.backend == "auto" and _tpu_available()):
-            from mgpoisson.kernels import pallas as pallas_ops
-            return pallas_ops
-        return xla
-    if spec.ndim != 2:
-        return xla
-    use_pallas = spec.backend == "pallas" or (
-        spec.backend == "auto"
-        and _tpu_available()
-        and level_size >= spec.pallas_min_size
-    )
-    if use_pallas:
-        from mgpoisson.kernels import pallas as pallas_ops
-        return pallas_ops
-    return xla
+    return hopper

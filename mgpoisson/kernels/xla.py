@@ -2,9 +2,10 @@
 
 Each function mirrors one reference grid-point op (SURVEY.md section 2.2
 N1-N10) with identical semantics; XLA fuses the pad/shift stencils into
-single bandwidth-bound loops.  This is the portable backend (CPU CI,
-interpret-mode parity) and the fallback below the Pallas level-size
-threshold.
+single bandwidth-bound loops.  This is the backend every level runs
+unless `kernels.get_ops` hands a fine 2D level to the Hopper smoother
+(kernels/hopper.py), which calls back into these ops for everything but
+the sweeps.
 
 All stencil ops take `bc`:
   'ghost0' — out-of-range neighbors read 0 (`cpu.lua:28-31`): the
@@ -82,7 +83,7 @@ def gs_lex_sweep(u: jax.Array, f: jax.Array, h, bc: str = "ghost0") -> jax.Array
     jittable via lax.scan over leading axes and a first-order linear
     recurrence along the last axis (u_k = c_k + u_{k-1}/(2*ndim),
     solved with an associative scan).  XLA/CPU parity path — use
-    'rbgs' for the deterministic PARALLEL Gauss-Seidel on TPU; plain GS
+    'rbgs' for the deterministic PARALLEL Gauss-Seidel; plain GS
     on parallel hardware is the race the reference documents
     (`gpu.lua:61-62`).  bc='ghost0' only (like the oracle's
     gs_lex_sweep; the reference has no other bc)."""
@@ -177,10 +178,7 @@ def apply_operator(u: jax.Array, h, bc: str = "ghost0") -> jax.Array:
 
 def restrict(r: jax.Array) -> jax.Array:
     """2^ndim-cell average restriction, exact 1/4 / 1/8 weights
-    (reduceResidual, `gpu.lua:126-137`).
-
-    reduce_window lowers to the native TPU pooling path (~22x faster
-    than reshape-mean at 4096^2, which forces lane-dim relayouts)."""
+    (reduceResidual, `gpu.lua:126-137`), as one reduce_window."""
     s = jax.lax.reduce_window(r, jnp.zeros((), r.dtype), jax.lax.add,
                               (2,) * r.ndim, (2,) * r.ndim, "VALID")
     return s * (0.5 ** r.ndim)
@@ -209,8 +207,8 @@ def prolong(V: jax.Array, kind: str = "inject") -> jax.Array:
     # global edges (interpolating to zero at the cell face).  Expanding
     # the axis product gives ONE fused elementwise pass over R with
     # 3^nd static-offset taps — the same shape as the neighbor-sum
-    # stencil XLA runs near the HBM roofline (a sequential per-axis
-    # blend materializes the intermediate each time: ~2.5x slower).
+    # stencil (a sequential per-axis blend would materialize the
+    # intermediate once per axis).
     for ax in range(nd):
         V = jnp.repeat(V, 2, axis=ax)
     R = V
@@ -280,8 +278,8 @@ def coarse_solve(u: jax.Array, f: jax.Array, h, smoother: str = "jacobi",
 
 
 # ------------------------------------------------- composite (fused) ops
-# One call per V-cycle half-level; the Pallas backend overrides these
-# with single-kernel versions.
+# One call per V-cycle half-level; kernels/hopper.py has the same four
+# around its own smoother.
 
 def smooth_residual_restrict(u, f, h, nu, smoother="jacobi", bc="ghost0"):
     """pre-smooth x nu, then R = restrict(residual). Returns (u, R)."""
@@ -294,7 +292,7 @@ def smooth_residual_restrict_zero(f, h, nu, smoother="jacobi",
     """Down-leg from u IDENTICALLY ZERO — every coarse V-cycle entry
     (cycle/vcycle.py).  Values identical to passing an explicit zeros
     array; XLA's algebraic simplifier folds the first sweep's
-    zero-operand stencil, so no kernel variant is needed here."""
+    zero-operand stencil."""
     return smooth_residual_restrict(jnp.zeros_like(f), f, h, nu,
                                     smoother, bc)
 

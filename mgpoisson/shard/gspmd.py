@@ -3,11 +3,11 @@
 Layout policy (SURVEY.md section 2.3):
 - fine levels: 2D block sharding over the ('x','y') mesh axes; XLA's
   SPMD partitioner turns the stencil pad/shift ops into one-cell halo
-  exchanges (collective-permutes) over ICI.
+  exchanges (collective-permutes) between neighbouring devices.
 - levels at or below spec.replicate_below: fully replicated — every
   device redundantly computes the tiny coarse subtree, avoiding
-  collective latency.  This is the TPU rebirth of the reference
-  hybrid's cpuDepth handoff (`cpu-gpu.lua:17-52`): the reference moves
+  collective latency.  This is the reference hybrid's cpuDepth
+  handoff reborn (`cpu-gpu.lua:17-52`): the reference moves
   small grids to the CPU because they are launch-latency-bound on GPU;
   here they are collective-latency-bound when sharded.
 

@@ -1,9 +1,10 @@
 """Device-mesh construction for domain-decomposed solves.
 
 The reference is single-device (its only 'distribution' is the CPU/GPU
-hybrid handoff, `cpu-gpu.lua:17-52`).  The TPU analog of scaling grid
-size is 2D block sharding of the grid over a mesh with XLA collectives
-riding ICI (SURVEY.md section 2.3 / section 5).
+hybrid handoff, `cpu-gpu.lua:17-52`).  Here grid size scales by 2D
+block sharding of the grid over a device mesh, with XLA collectives
+between neighbouring blocks (SURVEY.md section 2.3 / section 5).  On
+cards joined all to all the mesh shape follows the algorithm alone.
 """
 
 from __future__ import annotations
@@ -18,8 +19,7 @@ def mesh_shape_for(n_devices: int, ndim: int = 2) -> Tuple[int, ...]:
     """Balanced 2-axis factorization of n_devices (e.g. 8 -> (4, 2)).
 
     The grid is sharded over 2 mesh axes regardless of ndim (3D grids
-    shard their first two axes; the innermost stays contiguous for
-    lane-aligned layouts).
+    shard their first two axes; the innermost stays contiguous).
     """
     best = (n_devices, 1)
     a = int(np.sqrt(n_devices))

@@ -1,10 +1,11 @@
 """Multi-host entry points (grids beyond one slice).
 
 The reference is single-process/single-device; this is the scale-out
-path SURVEY.md section 2.3 plans: `jax.distributed` across hosts (DCN),
-with the same 2D mesh semantics — ICI inside a slice, DCN across.
+path SURVEY.md section 2.3 plans: `jax.distributed` across hosts, with
+the same 2D mesh semantics - the fast links inside a host, the network
+across hosts.
 
-Not exercisable in a single-host environment; kept thin and documented.
+It has not run on more than one GPU host; kept thin and documented.
 The mesh returned here plugs directly into MultigridPoisson(spec, mesh).
 """
 
@@ -36,8 +37,8 @@ def global_mesh(mesh_shape: Optional[Tuple[int, int]] = None,
 
     Device order follows jax.devices(), which groups by process; a 2D
     factorization keeps each host's chips contiguous along one axis so
-    halo exchanges mostly ride ICI and only the mesh-axis seams cross
-    DCN.
+    halo exchanges mostly stay inside a host and only the mesh-axis
+    seams cross the network.
     """
     devices = jax.devices()
     if mesh_shape is None:

@@ -6,13 +6,12 @@ mesh, with the communication written out explicitly —
 
 - deep-halo exchange per smoother PHASE: one radius*nu-deep
   `jax.lax.ppermute` neighbor shift per phase (f exchanged once per
-  level), halo cells recomputed locally — the in-chip deep-halo
-  trapezoid (kernels/pallas.py) applied across devices.  Same lines
-  over ICI as per-sweep exchange, 1/nu the messages in the
-  latency-bound small-halo regime; the residual keeps its own 1-cell
-  exchange.  The nearest-neighbor torus pattern is what ICI is built
-  for (SURVEY.md section 5, the PDE analog of ring attention).
-  Non-wrapping permutes deliver zeros to edge devices,
+  level), halo cells recomputed locally - the deep-halo trapezoid of
+  docs/KERNELS.md applied across devices.  Same lines cross the
+  interconnect as with a per-sweep exchange, in 1/nu the messages,
+  which is what counts in the latency-bound small-halo regime; the
+  residual keeps its own 1-cell exchange.  Non-wrapping permutes
+  deliver zeros to edge devices,
   which IS the reference's zero-ghost Dirichlet boundary
   (`cpu.lua:28-31`) — the boundary condition falls out of the
   collective's semantics.  Face-Dirichlet (tuned scheme's coarse
@@ -26,17 +25,8 @@ mesh, with the communication written out explicitly —
   tiny grids are collective-latency-bound, so stop communicating.
 - error reductions are local sums + psum.
 
-Per-shard fused Pallas kernels (2D): when a level's LOCAL block meets
-`kernels.pallas.sharded_plan` (f32/bf16, lane-aligned shape) and the
-backend allows Pallas, the down-leg runs `smooth_rr_sharded` and the
-up-leg `pc_smooth_sharded` — the fused single-chip strip kernels with
-the halo handed in as pre-exchanged ppermute strips (rows at the plan
-depth, 128-lane-aligned columns with corners carried).  This is what
-makes the single-chip kernel win apply to the scale-out config: the
-fine-level kernels ARE the hot path (`gpu.lua:286-346`), and without
-them each shard would run the ~7x-slower unfused XLA sweeps.
-Coarser sharded levels (blocks below the plan minimum) keep the jnp
-deep-halo path — the hybrid's cpuDepth idea applied a second time.
+Every per-shard op is XLA's: inside `shard_map` each device runs its
+block's stencils as ordinary fused XLA ops.
 
 Rank-polymorphic: 2D grids shard both axes; 3D grids shard axes 0 and 1
 over the same ('x','y') mesh with axis 2 kept local (contiguous lanes).
@@ -52,24 +42,6 @@ from jax.sharding import PartitionSpec as P
 from mgpoisson.cycle.vcycle import _cycle as _replicated_cycle
 from mgpoisson.kernels import xla
 
-
-def _pallas_enabled(spec) -> bool:
-    """Per-shard Pallas strip kernels: on for 2D and 3D on any mesh
-    under backend 'auto' (TPU) or 'pallas' (forced — interpret-mode
-    tests set the MGPOISSON_PALLAS_INTERPRET env and force the backend
-    on CPU)."""
-    if spec.ndim not in (2, 3) or spec.backend == "xla":
-        return False
-    if spec.smoother_resolved not in ("jacobi", "wjacobi", "rbgs"):
-        return False
-    if spec.nu_pre < 1 or spec.nu_post < 1:
-        return False
-    if spec.backend == "pallas":
-        return True
-    try:
-        return jax.default_backend() == "tpu"
-    except Exception:  # pragma: no cover
-        return False
 
 # mesh axis name per sharded array axis; array axes >= 2 are local
 _AXIS_NAMES = ("x", "y")
@@ -158,13 +130,11 @@ def _build_parts(spec, mesh):
     # ---------------- deep-halo smoothing phase (comm aggregation) ----
     # One r-deep halo exchange per smooth PHASE instead of a 1-cell
     # exchange per sweep (r = per-sweep dependency radius x nu): the
-    # same total lines cross ICI, but in one message per neighbor per
-    # phase instead of nu — the latency-bound regime for small halo
-    # lines is where ICI time actually goes.  Halo cells are recomputed
-    # redundantly and lose one ring of exactness per sweep, exactly the
-    # deep-halo trapezoid the Pallas kernels use in-chip
-    # (kernels/pallas.py); values are bit-identical to the per-sweep
-    # exchange (same stencil on the same neighbor data).
+    # same total lines cross the interconnect, but in one message per
+    # neighbor per phase instead of nu.  Halo cells are recomputed
+    # redundantly and lose one ring of exactness per sweep; values are
+    # bit-identical to the per-sweep exchange (same stencil on the same
+    # neighbor data).
 
     def _lines(u, ax, side, r):
         idx = [slice(None)] * u.ndim
@@ -356,78 +326,7 @@ def _build_parts(spec, mesh):
                 return False
         return True
 
-    # -------------- per-shard fused Pallas strip kernels (2D) ---------
-    # The fused single-chip half-level kernels, fed by ppermute strips:
-    # top/bottom at the plan's halo depth, left/right as 128-lane
-    # columns row-extended so the sequential per-axis exchange carries
-    # the corners (same scheme as deep_halos).  Non-wrapping permutes
-    # zero-fill past the global boundary, which the kernels' in-kernel
-    # bc fixup expects (flags mark which device edges are global).
-    pallas_on = _pallas_enabled(spec)
-    nu_plan = max(spec.nu_pre, spec.nu_post)
-    # a single device column means no column neighbors exist: the strip
-    # kernels compile without the 128-lane column strips/window and the
-    # (N,1) mesh — the natural ICI-ring decomposition — pays only the
-    # tiny row-strip DMAs over the single-chip fused kernels
-    col_nbrs = mesh_sizes["y"] > 1
-
-    def level_plan(shape, dtype):
-        if not pallas_on:
-            return None
-        from mgpoisson.kernels import pallas as pk
-        if ndim == 3:
-            return pk.sharded_plan3(shape, nu_plan, smoother, dtype,
-                                    y_nbrs=col_nbrs)
-        return pk.sharded_plan(shape, nu_plan, smoother, dtype,
-                               col_nbrs=col_nbrs)
-
-    def strips(a, depth):
-        """(top, bot, left, right) ppermute halo strips for local
-        block a: 'x'-axis strips `depth` deep; 'y'-axis strips 128
-        lanes wide in 2D (the strip kernels' lane-aligned DMA
-        granularity) / 8 sublanes deep in 3D (the kernels' fixed y
-        halo), extended along the first axis so the sequential
-        per-axis exchange carries the corners.  left/right are None on
-        a single-device-column mesh."""
-        top = shift(_lines(a, 0, "hi", depth), "x", +1)
-        bot = shift(_lines(a, 0, "lo", depth), "x", -1)
-        if a.ndim == 3:
-            if not col_nbrs:
-                return top, bot, None, None
-            # y-edge slices of the z-extended block (only the 8-deep
-            # edges are read, never the full concatenation)
-            fcol = jnp.concatenate(
-                [top[:, -8:], a[:, -8:], bot[:, -8:]], axis=0)
-            bcol = jnp.concatenate(
-                [top[:, :8], a[:, :8], bot[:, :8]], axis=0)
-            return (top, bot, shift(fcol, "y", +1),
-                    shift(bcol, "y", -1))
-        if not col_nbrs:
-            return top, bot, None, None
-        # edge columns of the row-extended block, WITHOUT materializing
-        # the (nl + 2*depth, ml) concatenation in HBM (two full array
-        # passes) — only the 128-lane edge columns are ever read
-        lcol = jnp.concatenate(
-            [top[:, -128:], a[:, -128:], bot[:, -128:]], axis=0)
-        rcol = jnp.concatenate(
-            [top[:, :128], a[:, :128], bot[:, :128]], axis=0)
-        left = shift(lcol, "y", +1)
-        right = shift(rcol, "y", -1)
-        return top, bot, left, right
-
-    def edge_flags():
-        ax = jax.lax.axis_index("x")
-        ay = jax.lax.axis_index("y")
-        return jnp.stack(
-            [ax == 0, ax == mesh_sizes["x"] - 1,
-             ay == 0, ay == mesh_sizes["y"] - 1]).astype(jnp.int32)
-
-    def cycle(u, f, h, global_size, fine_level, want_r2=False):
-        """want_r2: also return the LOCAL sum of the result's squared
-        residual as an f32 scalar (fused into the up-leg strip kernel
-        when the Pallas plan is live — free stop='residual' under the
-        explicit partition), or None when no fused path produced it
-        (caller falls back to a separate residual pass)."""
+    def cycle(u, f, h, global_size, fine_level):
         bc = "ghost0" if fine_level else spec.coarse_bc
 
         if global_size <= spec.replicate_below \
@@ -438,37 +337,7 @@ def _build_parts(spec, mesh):
             f_full = gather_full(f)
             u_full = _replicated_cycle(u_full, f_full, h, spec, gamma,
                                        fine_level, None)
-            u = slice_local(u_full, u.shape)
-            return (u, None) if want_r2 else u
-
-        plan = level_plan(u.shape, u.dtype)
-        if plan is not None:
-            from mgpoisson.kernels import pallas as pk
-            h8 = plan[0]
-            cdepth = plan[3] if ndim == 3 else 8
-            rr = pk.smooth_rr_sharded3 if ndim == 3 \
-                else pk.smooth_rr_sharded
-            pc = pk.pc_smooth_sharded3 if ndim == 3 \
-                else pk.pc_smooth_sharded
-            fl = edge_flags()
-            fstrips = strips(f, h8)       # f is level-invariant: once
-            ustrips = strips(u, h8)
-            u, R = rr(
-                u, f, ustrips, fstrips, fl, h, spec.nu_pre, smoother,
-                bc, plan=plan)
-            V = jnp.zeros_like(R)
-            for _ in range(gamma):
-                V = cycle(V, R, 2 * h, global_size // 2, False)
-            vstrips = strips(V, cdepth)   # coarse exchange depth
-            ustrips = strips(u, h8)       # u changed: re-exchange
-            out = pc(
-                u, f, V, ustrips, fstrips, vstrips, fl, h,
-                spec.nu_post, smoother, bc, spec.prolong_kind,
-                plan=plan, rnorm=want_r2)
-            if want_r2:
-                u, racc = out
-                return u, jnp.sum(racc)
-            return out
+            return slice_local(u_full, u.shape)
 
         # exchange the level-invariant RHS halo ONCE for both phases
         rmax = _RADIUS * max(spec.nu_pre, spec.nu_post)
@@ -480,8 +349,14 @@ def _build_parts(spec, mesh):
         for _ in range(gamma):
             V = cycle(V, R, 2 * h, global_size // 2, False)
         u = prolong_correct(u, V, spec.prolong_kind)
-        u = smooth_phase(u, f, h, spec.nu_post, bc, fe, rmax)
-        return (u, None) if want_r2 else u
+        return smooth_phase(u, f, h, spec.nu_post, bc, fe, rmax)
+
+    def local_r2(psi, f):
+        """LOCAL sum of squared fine-level residuals, accumulated in at
+        least f32 and never below the solve dtype."""
+        r = residual(psi, f, h0, "ghost0")
+        r = r.astype(jnp.promote_types(r.dtype, jnp.float32))
+        return jnp.sum(r * r)
 
     def step_local(psi, f):
         """Returns (psi_new, rms_update, residual_norm) — the solver
@@ -498,19 +373,9 @@ def _build_parts(spec, mesh):
             err_upd = jnp.sqrt(sq / (spec.size ** ndim))
             rn = zero
         else:
-            # ||r||^2 fused into the up-leg strip kernel when the
-            # Pallas plan is live; separate pass only on fallbacks
-            psi_new, r2l = cycle(psi, f, h0, spec.size, True,
-                                 want_r2=True)
+            psi_new = cycle(psi, f, h0, spec.size, True)
             err_upd = zero
-            if r2l is None:
-                r = residual(psi_new, f, h0, "ghost0")
-                r2l = jnp.sum(r * r)
-            # accumulate in at least f32 (unifies the bf16 Pallas racc)
-            # but never BELOW the solve dtype — an f64 solve's stopping
-            # metric must not round through f32
-            acc_dt = jnp.promote_types(r2l.dtype, jnp.float32)
-            rn = jnp.sqrt(jax.lax.psum(r2l.astype(acc_dt),
+            rn = jnp.sqrt(jax.lax.psum(local_r2(psi_new, f),
                                        ("x", "y"))).astype(psi.dtype)
         return psi_new, err_upd, rn
 
@@ -524,10 +389,8 @@ def _build_parts(spec, mesh):
         """Iterative-refinement step under the explicit partition (the
         shard-local twin of solver/multigrid.py's gspmd mixed step):
         the V-cycle runs on the error equation A e = r entirely in
-        sweep_dtype — including the per-shard Pallas strip kernels,
-        whose plan re-resolves for the narrower dtype — while the
-        residual, correction, and stopping metric stay in dtype.  All
-        extra work is elementwise plus the one halo exchange `residual`
+        sweep_dtype while the residual, correction, and stopping
+        metric stay in dtype.  All extra work is elementwise plus the one halo exchange `residual`
         already performs.  With stop='residual' the reported err is
         ||r|| of the INCOMING iterate (same convention as the gspmd
         path: the residual is in hand before the correction)."""
@@ -549,95 +412,13 @@ def _build_parts(spec, mesh):
             rn = zero
         return psi_new, err_upd, rn
 
-    # -------- packed-persistent fine level under the partition --------
-    # The packed-persistent fine level (mgpoisson.cycle.packed) composed
-    # with the explicit partition, on ROW-SHARDED meshes: pack_grid is
-    # row-preserving and lane-local, so with columns unsharded a
-    # globally packed array is exactly a per-shard packed array.  The
-    # solver packs psi/f once per solve; the fine level runs the packed
-    # strip kernels (kernels/pallas.py packed_rr_sharded /
-    # packed_pc_sharded) with 8-deep PACKED row strips exchanged by the
-    # same ppermute as the unpacked path, and the coarse subtree runs
-    # the existing sharded cycle on the UNPACKED coarse rhs the packed
-    # down-leg emits (same structure as the single-device
-    # make_packed_cycle).
-
-    def _packed_plan():
-        if not pallas_on or ndim != 2 or smoother != "rbgs":
-            return None
-        if mesh_sizes["y"] != 1:
-            return None
-        if not (1 <= spec.nu_pre <= 3 and 1 <= spec.nu_post <= 3):
-            return None
-        # the fine level must actually run sharded (no replicated
-        # handoff at the top) for the packed strip kernels to own it
-        if spec.size <= spec.replicate_below \
-                or not shardable(spec.size) \
-                or not shardable(spec.size // 2):
-            return None
-        from mgpoisson.kernels import pallas as pk
-        local = (spec.size // mesh_sizes["x"], spec.size)
-        return pk.packed_sharded_plan(
-            local, max(spec.nu_pre, spec.nu_post),
-            jnp.dtype(spec.dtype).itemsize)
-
-    packed_plan = _packed_plan()
-
-    def cycle_packed(pp, fp, want_r2=False):
-        """One cycle over PACKED local fine state (pp, fp); returns
-        (pp', local sum(r^2) or None)."""
-        from mgpoisson.kernels import pallas as pk
-        fl = edge_flags()
-        d = packed_plan[0]
-        fstrips = strips(fp, d)
-        ustrips = strips(pp, d)
-        pp, R = pk.packed_rr_sharded(pp, fp, ustrips, fstrips, fl, h0,
-                                     spec.nu_pre, plan=packed_plan)
-        V = jnp.zeros_like(R)
-        for _ in range(gamma):
-            V = cycle(V, R, 2 * h0, spec.size // 2, False)
-        vstrips = strips(V, 8)
-        ustrips = strips(pp, d)
-        out = pk.packed_pc_sharded(pp, fp, V, ustrips, fstrips,
-                                   vstrips, fl, h0, spec.nu_post,
-                                   spec.prolong_kind, plan=packed_plan,
-                                   rnorm=want_r2)
-        if want_r2:
-            ppn, racc = out
-            return ppn, jnp.sum(racc)
-        return out, None
-
-    def step_local_packed(pp, fp):
-        """The packed twin of step_local; update-RMS is permutation-
-        invariant, so the packed difference gives the exact metric."""
-        zero = jnp.zeros((), pp.dtype)
-        if spec.stop == "update":
-            ppn, _ = cycle_packed(pp, fp)
-            dl = ppn - pp
-            sq = jax.lax.psum(jnp.sum(dl * dl), ("x", "y"))
-            return ppn, jnp.sqrt(sq / (spec.size ** ndim)), zero
-        ppn, r2l = cycle_packed(pp, fp, want_r2=True)
-        rn = jnp.sqrt(jax.lax.psum(r2l, ("x", "y"))).astype(pp.dtype)
-        return ppn, zero, rn
-
-    def cycle_plain_local_packed(pp, fp):
-        return cycle_packed(pp, fp)[0]
-
-    def cycle_rnorm_local_packed(pp, fp):
-        ppn, r2l = cycle_packed(pp, fp, want_r2=True)
-        return ppn, jax.lax.psum(r2l, ("x", "y"))
-
     # -------- bare cycles for the adaptive solve loop ------------------
     def cycle_plain_local(psi, f):
         return cycle(psi, f, h0, spec.size, True)
 
     def cycle_rnorm_local(psi, f):
-        psi_new, r2l = cycle(psi, f, h0, spec.size, True, want_r2=True)
-        if r2l is None:
-            r = residual(psi_new, f, h0, "ghost0")
-            r2l = jnp.sum(r * r)
-        acc_dt = jnp.promote_types(r2l.dtype, jnp.float32)
-        return psi_new, jax.lax.psum(r2l.astype(acc_dt), ("x", "y"))
+        psi_new = cycle(psi, f, h0, spec.size, True)
+        return psi_new, jax.lax.psum(local_r2(psi_new, f), ("x", "y"))
 
     def fmg_local(f):
         """Full-multigrid initialization (`cycle/vcycle.py::fmg`) under
@@ -699,10 +480,6 @@ def _build_parts(spec, mesh):
             "step_mixed_local": step_mixed_local,
             "cycle_plain_local": cycle_plain_local,
             "cycle_rnorm_local": cycle_rnorm_local,
-            "packed_plan": packed_plan,
-            "step_local_packed": step_local_packed,
-            "cycle_plain_local_packed": cycle_plain_local_packed,
-            "cycle_rnorm_local_packed": cycle_rnorm_local_packed,
             "pspec": pspec}
 
 
@@ -723,52 +500,13 @@ def build_spmd_cycles(spec, mesh):
     """(plain, rnorm) global-array cycle functions for the adaptive
     solve loop (stop_check='adaptive' under the explicit partition):
     plain(psi, f) -> psi_new runs the metric-free V-cycle; rnorm
-    additionally returns the psum'd global sum(r^2) — fused into the
-    up-leg strip kernel when the Pallas plan is live."""
+    additionally returns the psum'd global sum(r^2)."""
     parts = _build_parts(spec, mesh)
     pspec = parts["pspec"]
     plain = jax.shard_map(parts["cycle_plain_local"], mesh=mesh,
                           in_specs=(pspec, pspec), out_specs=pspec,
                           check_vma=False)
     rnorm = jax.shard_map(parts["cycle_rnorm_local"], mesh=mesh,
-                          in_specs=(pspec, pspec),
-                          out_specs=(pspec, P()), check_vma=False)
-    return plain, rnorm
-
-
-def spmd_packed_plan(spec, mesh):
-    """The packed-persistent stripe plan under this mesh, or None —
-    row-sharded meshes only (see the packed sharded section of
-    kernels/pallas.py).  Cheap: builds closures, compiles nothing."""
-    return _build_parts(spec, mesh)["packed_plan"]
-
-
-def build_spmd_step_packed(spec, mesh):
-    """step(pp, fp) -> (pp_new, rms_update, residual_norm) over PACKED
-    global state (the solver packs/unpacks at the solve boundary)."""
-    parts = _build_parts(spec, mesh)
-    if parts["packed_plan"] is None:
-        raise ValueError("packed-persistent spmd path unsupported for "
-                         "this spec/mesh (row-sharded f32 rbgs only)")
-    pspec = parts["pspec"]
-    return jax.shard_map(parts["step_local_packed"], mesh=mesh,
-                         in_specs=(pspec, pspec),
-                         out_specs=(pspec, P(), P()),
-                         check_vma=False)
-
-
-def build_spmd_cycles_packed(spec, mesh):
-    """(plain, rnorm) cycle functions over PACKED global state for the
-    adaptive solve loop under the explicit partition."""
-    parts = _build_parts(spec, mesh)
-    if parts["packed_plan"] is None:
-        raise ValueError("packed-persistent spmd path unsupported for "
-                         "this spec/mesh (row-sharded f32 rbgs only)")
-    pspec = parts["pspec"]
-    plain = jax.shard_map(parts["cycle_plain_local_packed"], mesh=mesh,
-                          in_specs=(pspec, pspec), out_specs=pspec,
-                          check_vma=False)
-    rnorm = jax.shard_map(parts["cycle_rnorm_local_packed"], mesh=mesh,
                           in_specs=(pspec, pspec),
                           out_specs=(pspec, P()), check_vma=False)
     return plain, rnorm

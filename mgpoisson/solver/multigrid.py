@@ -6,7 +6,7 @@ Reference surface reproduced:
 - `solve()` = iterate to maxiter with errorCallback early exit and
   stop on err < tol or non-finite err (`cpu.lua:208-216`)
 
-TPU-first differences:
+Differences from the reference:
 - the whole solve loop can run on-device as one jitted
   `lax.while_loop` with a fused on-device error reduction (the
   reference blocks on a device->host readback every cycle,
@@ -53,8 +53,8 @@ class SolveResult:
 
 
 class MultigridPoisson:
-    """Geometric multigrid Poisson solver (TPU-native MultigridCPU/GPU,
-    `cpu.lua:15`, `gpu.lua:18`)."""
+    """Geometric multigrid Poisson solver (the reference's
+    MultigridCPU/GPU, `cpu.lua:15`, `gpu.lua:18`)."""
 
     def __init__(self, spec: Spec, mesh=None):
         """mesh: optional jax.sharding.Mesh (or set spec.mesh_shape) for
@@ -62,7 +62,7 @@ class MultigridPoisson:
         replication (see mgpoisson.shard)."""
         if mesh is not None and spec.mesh_shape is None:
             # normalize: downstream backend selection keys off
-            # spec.mesh_shape (get_ops fences Pallas under a mesh)
+            # spec.mesh_shape (get_ops keeps sharded levels on XLA)
             spec = spec.with_(mesh_shape=tuple(mesh.devices.shape))
         self.spec = spec
         self._dtype = jnp.dtype(spec.dtype)
@@ -82,22 +82,16 @@ class MultigridPoisson:
         if sweep_dt == self._dtype:
             sweep_dt = None
         self._cycle_plain = None      # set only by adaptive stop_check
-        self._packed = False          # packed-persistent fine level
-        self._loop_step = None        # packed-carry step for the loop
-        self._pack_fns = None         # jitted (pack, unpack), lazy
-        self._loop_residual_norm = xla_ops.residual_norm
         if spec.stop_check == "adaptive" and sweep_dt is not None:
             raise ValueError("stop_check='adaptive' buys nothing under "
                              "mixed-precision refinement: the "
                              "refinement step computes the "
                              "full-precision residual every cycle "
                              "anyway; use stop_check='every'")
-        # partition='auto' (the default): prefer the explicit shard_map
-        # partition — it is the only path that runs the fused Pallas
-        # strip kernels per shard (the gspmd fence in kernels.get_ops
-        # forces the ~7x-slower unfused XLA sweeps at the fine level) —
-        # falling back to gspmd when the mesh lacks the ('x','y') axes
-        # the spmd collectives address.
+        # partition='auto' (the default): the explicit shard_map
+        # partition (one deep-halo exchange per smoothing phase), falling
+        # back to gspmd when the mesh lacks the ('x','y') axes the spmd
+        # collectives address.
         partition = spec.partition
         if partition == "auto":
             partition = ("spmd" if self.mesh is not None
@@ -115,42 +109,13 @@ class MultigridPoisson:
                 err = err_upd if spec.stop == "update" else rn / r0
                 return psi_new, err
 
-            # Packed-persistent fine level under the partition
-            # (row-sharded meshes; mgpoisson.cycle.packed +
-            # kernels/pallas.py packed sharded section): the jitted
-            # no-callback solve loop carries globally-packed state —
-            # valid because pack_grid is row-preserving, so global
-            # packing == per-shard packing when columns are unsharded.
-            if sweep_dt is None:
-                from mgpoisson.cycle import packed as packed_mod
-                self._packed = packed_mod.supported_spmd(spec, self.mesh)
-            if self._packed:
-                from mgpoisson.shard.spmd import build_spmd_step_packed
-                spmd_pstep = build_spmd_step_packed(spec, self.mesh)
-
-                def loop_step(pp, fp, r0):
-                    ppn, err_upd, rn = spmd_pstep(pp, fp)
-                    err = err_upd if spec.stop == "update" else rn / r0
-                    return ppn, err
-
-                self._loop_step = loop_step
-
             if spec.stop_check == "adaptive":
                 # the adaptive solve loop drives the bare shard_map'd
                 # cycles directly (see _build_adaptive_loop); psi/f at
                 # the loop level are global arrays, so the loop body is
                 # unchanged from the gspmd form
-                if self._packed:
-                    from mgpoisson.cycle import packed as packed_mod
-                    from mgpoisson.shard.spmd import \
-                        build_spmd_cycles_packed
-                    plain, rnorm = build_spmd_cycles_packed(spec,
-                                                            self.mesh)
-                    self._loop_residual_norm = \
-                        packed_mod.residual_norm_packed
-                else:
-                    from mgpoisson.shard.spmd import build_spmd_cycles
-                    plain, rnorm = build_spmd_cycles(spec, self.mesh)
+                from mgpoisson.shard.spmd import build_spmd_cycles
+                plain, rnorm = build_spmd_cycles(spec, self.mesh)
                 self._cycle_plain = lambda u, f, h: plain(u, f)
                 self._cycle_rnorm = lambda u, f, h: rnorm(u, f)
         elif sweep_dt is not None:
@@ -159,8 +124,7 @@ class MultigridPoisson:
             # while the residual, correction, and stopping metric stay
             # in dtype.  bf16 sweeps halve the HBM bytes (they are
             # bandwidth-bound) and the outer loop restores full dtype
-            # accuracy — the TPU-native role for bf16 here (a pure-bf16
-            # solve stalls: r = f - A psi is all cancellation below
+            # accuracy (a pure-bf16 solve stalls: r = f - A psi is all cancellation below
             # bf16 precision once psi is a few digits converged).
             inner_cycle = make_cycle(spec.with_(dtype=spec.sweep_dtype),
                                      constrain=constrain, rnorm=False)
@@ -193,40 +157,8 @@ class MultigridPoisson:
                 return psi_new, err
         else:
             want_rnorm = spec.stop == "residual"
-            # Packed-persistent fine level (mgpoisson.cycle.packed):
-            # psi/f stay checkerboard-packed in HBM across the whole
-            # solve loop, so the rbgs sweep runs its 2.5x-cheaper
-            # packed form with NO per-call pack/unpack.  The jitted
-            # no-callback solve loop packs at entry and unpacks at
-            # exit (solve()); the public step()/callback/batched
-            # surfaces keep the unpacked step below.
-            from mgpoisson.cycle import packed as packed_mod
-            self._packed = packed_mod.supported(spec)
-            if self._packed:
-                pcycle = packed_mod.make_packed_cycle(spec,
-                                                      rnorm=want_rnorm)
-                if want_rnorm and spec.stop_check == "adaptive":
-                    self._cycle_plain = packed_mod.make_packed_cycle(
-                        spec, rnorm=False)
-                    self._cycle_rnorm = pcycle
-                    self._loop_residual_norm = \
-                        packed_mod.residual_norm_packed
-
-                def loop_step(psi, f, r0):
-                    if want_rnorm:
-                        psi_new, r2 = pcycle(psi, f, h)
-                        err = jnp.sqrt(r2).astype(r0.dtype) / r0
-                    else:
-                        psi_new = pcycle(psi, f, h)
-                        # update-RMS is permutation-invariant, so the
-                        # packed difference gives the exact metric
-                        err = xla_ops.rms_update(psi_new, psi)
-                    return psi_new, err
-
-                self._loop_step = loop_step
             cycle = make_cycle(spec, constrain=constrain, rnorm=want_rnorm)
-            if (want_rnorm and spec.stop_check == "adaptive"
-                    and not self._packed):
+            if want_rnorm and spec.stop_check == "adaptive":
                 # adaptive stopping needs the metric-free cycle too:
                 # far from tol the loop runs this one and predicts
                 # ||r|| instead of measuring it (see _adaptive_loop)
@@ -256,7 +188,7 @@ class MultigridPoisson:
         self._step_fn = step  # unjitted, for embedding in larger programs
         self._step = jax.jit(step)
         self._solve_loop = jax.jit(
-            self._build_solve_loop(self._loop_step or step),
+            self._build_solve_loop(step),
             donate_argnums=(0,))
         self._solve_batched_loops = {}  # built lazily by solve_batched
         self._fmg = None            # built lazily by init_state
@@ -320,8 +252,8 @@ class MultigridPoisson:
         metric-free kernel; the exact fused-||r|| cycle runs only when
         a learned per-cycle contraction model predicts the residual is
         near tol (or every ADAPTIVE_MAX_SKIP cycles).  Stopping uses
-        only measured values — identical converged answers, ~2-3x less
-        amortized metric overhead than stop_check='every'.
+        only measured values — identical converged answers, with the
+        metric computed on a fraction of the cycles.
 
         The reference re-reads the whole error buffer to the host every
         cycle (`gpu.lua:361-369`); this is the opposite end point: not
@@ -396,7 +328,7 @@ class MultigridPoisson:
             def _remeasure(_):
                 psi_c = psi if constrain is None else constrain(psi)
                 f_c = f if constrain is None else constrain(f)
-                return (self._loop_residual_norm(psi_c, f_c, h)
+                return (xla_ops.residual_norm(psi_c, f_c, h)
                         / r0).astype(rdt)
 
             stale = meas_it != it
@@ -474,18 +406,7 @@ class MultigridPoisson:
             r0 = self._r0(psi, f)
 
         if error_callback is None:
-            if self._packed:
-                # pack once per solve (exact MXU selection matmuls);
-                # the loop carries packed state end to end
-                from mgpoisson.cycle import packed as packed_mod
-                if self._pack_fns is None:
-                    self._pack_fns = (jax.jit(packed_mod.pack),
-                                      jax.jit(packed_mod.unpack))
-                _pack, _unpack = self._pack_fns
-                psi, f = _pack(psi), _pack(f)
             psi, it, err, errs, nmeas = self._solve_loop(psi, f, r0)
-            if self._packed:
-                psi = _unpack(psi)
             it = int(it)
             err_f = float(err)
             converged = err_f < self.spec.tol and math.isfinite(err_f)
@@ -500,9 +421,7 @@ class MultigridPoisson:
     def solve_batched(self, fs, *, cycles: Optional[int] = None):
         """Solve a batch of right-hand sides with one compiled program
         (a serving-style API the reference's imperative buffers could
-        not express): vmapped V-cycles on the XLA path; on the Pallas
-        path the per-element cycles run inside one fori/while loop
-        with a TUPLE carry (see _batched_loop for why).
+        not express): the V-cycle step under jax.vmap.
 
         fs: (batch, *spec.shape).  cycles: V-cycles to run (default:
         iterate until the worst per-element stopping metric is below
@@ -528,27 +447,9 @@ class MultigridPoisson:
         (`cycles` given) or a lax.while_loop on the worst per-element
         metric (until-converged, up to spec.maxiter) — either way no
         per-cycle device->host readback (the sync the reference pays
-        every cycle, `gpu.lua:362`).
-
-        Batch rule: jax.vmap of the step where legal (the XLA ops).
-        The manual-DMA (ANY-memory-space) pallas_calls have no vmap
-        batching rule (Mosaic rejects the batched grid's index_map),
-        and every formulation that slices a stacked batch near the
-        custom calls — lax.map, a trace-unrolled loop over psis[i],
-        with or without optimization_barrier — crashes XLA's TPU
-        fusion pass at batch >= ~4 ('Check failed:
-        fused_root->IsFusible()' on a slice_bitcast_fusion feeding the
-        custom-call chain).  What compiles and runs: carry a TUPLE of
-        per-element arrays, so the only batch slices sit at the jit
-        boundary feeding the loop init, never adjacent to a kernel.
-        At Pallas sizes each element already saturates HBM, so the
-        sequential per-element execution inside the loop body costs no
-        throughput; vmap exists to amortize per-launch overhead on
-        SMALL grids, which resolve to the XLA ops and keep it."""
-        from mgpoisson.kernels import get_ops
+        every cycle, `gpu.lua:362`)."""
         spec = self.spec
-        step = self._step_fn
-        use_vmap = get_ops(spec, spec.size) is xla_ops
+        vstep = jax.vmap(self._step_fn)
         # until-converged mode: freeze elements whose metric is already
         # below tol, so a mixed-difficulty batch does not keep smoothing
         # (and perturbing) its easy elements for the hardest one's
@@ -568,56 +469,22 @@ class MultigridPoisson:
                     0, cycles, lambda _, c: body(c), init)
             return jax.lax.while_loop(cond, body, init)
 
-        if use_vmap:
-            vstep = jax.vmap(step)
-
-            def batched_loop(psis, fs, r0s):
-                errs0 = jnp.full((psis.shape[0],), jnp.inf, psis.dtype)
-
-                def body(carry):
-                    psis, it, errs = carry
-                    new_psis, new_errs = vstep(psis, fs, r0s)
-                    if freeze:
-                        done = (it > 0) & (errs < spec.tol)
-                        keep = done.reshape(
-                            done.shape + (1,) * (psis.ndim - 1))
-                        new_psis = jnp.where(keep, psis, new_psis)
-                        new_errs = jnp.where(done, errs, new_errs)
-                    return new_psis, it + 1, new_errs
-
-                psis, _, errs = run(body, (psis, jnp.int32(0), errs0))
-                return psis, errs
-
-            return batched_loop
-
         def batched_loop(psis, fs, r0s):
-            B = psis.shape[0]
-            errs0 = jnp.full((B,), jnp.inf, psis.dtype)
-            fs_t = tuple(fs[i] for i in range(B))
-            r0_t = tuple(r0s[i] for i in range(B))
+            errs0 = jnp.full((psis.shape[0],), jnp.inf, psis.dtype)
 
             def body(carry):
-                psis_t, it, errs = carry
-                outs = []
-                for k, (p, f, r) in enumerate(zip(psis_t, fs_t, r0_t)):
-                    if freeze:
-                        # lax.cond actually SKIPS the V-cycle for a
-                        # converged element at runtime (per-element
-                        # arrays, not a vmapped select) — the compute
-                        # saving, not just bit-stability
-                        outs.append(jax.lax.cond(
-                            (it > 0) & (errs[k] < spec.tol),
-                            lambda p, f, r, _e=errs[k]: (p, _e),
-                            step, p, f, r))
-                    else:
-                        outs.append(step(p, f, r))
-                return (tuple(o[0] for o in outs), it + 1,
-                        jnp.stack([o[1] for o in outs]))
+                psis, it, errs = carry
+                new_psis, new_errs = vstep(psis, fs, r0s)
+                if freeze:
+                    done = (it > 0) & (errs < spec.tol)
+                    keep = done.reshape(
+                        done.shape + (1,) * (psis.ndim - 1))
+                    new_psis = jnp.where(keep, psis, new_psis)
+                    new_errs = jnp.where(done, errs, new_errs)
+                return new_psis, it + 1, new_errs
 
-            psis_t, _, errs = run(
-                body, (tuple(psis[i] for i in range(B)), jnp.int32(0),
-                       errs0))
-            return jnp.stack(psis_t), errs
+            psis, _, errs = run(body, (psis, jnp.int32(0), errs0))
+            return psis, errs
 
         return batched_loop
 

@@ -41,7 +41,7 @@ def validate_cycle(spec, u, f):
     """Run one V-cycle with stage tracing and finite-checking.
 
     Returns (u_new, trace) where trace is [(stage, level_size, array)].
-    The TPU-native form of running the reference with debug=true
+    The JAX form of running the reference with debug=true
     (`cpu.lua:177`).
     """
     from mgpoisson.cycle.vcycle import v_cycle

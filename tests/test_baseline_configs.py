@@ -3,14 +3,13 @@
 config 1 (64^2 Jacobi reference run)  -> covered in test_solver.py
 config 2 (512^2 red-black GS V-cycle, per-cycle residual reduction
           verified against the raw-CPU implementation) -> here
-config 3 (4096^2 roofline)            -> bench.py / bench.roofline (TPU)
-config 4 (3D 256^3)                   -> bench.py extras (TPU) +
+config 3 (4096^2 roofline)            -> bench.py / bench.roofline (GPU)
+config 4 (3D 256^3)                   -> bench.py extras (GPU) +
                                          scaled-down trace tests
-config 5 (16384^2 sharded on 16 chips)-> 16-virtual-device SPMD test
+config 5 (16384^2 sharded)            -> 16-virtual-device SPMD test
                                          here (subprocess; conftest pins
                                          this process to 8 devices) +
-                                         single-chip 16384^2 in bench
-                                         history
+                                         one-card 16384^2 in chip_smoke.py
 """
 
 import json

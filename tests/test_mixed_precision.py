@@ -4,7 +4,7 @@ The V-cycle runs in sweep_dtype on the error equation A e = r while the
 residual, correction, and stopping metric stay in dtype — bf16 sweeps
 with f32-accurate answers.  The dtype axis is an explicit behavioral
 surface of the reference (fp64-preferring device pick, `gpu.lua:7-15,32`);
-refinement is its TPU-native extension: bf16 is the bandwidth-fast
+refinement is its extension: bf16 is the bandwidth-fast
 storage format, but a pure-bf16 solve stalls at ~3 decimal digits.
 """
 
@@ -86,8 +86,8 @@ def test_refinement_under_gspmd_mesh():
 
 @pytest.mark.parametrize("mesh_shape", [(2, 2), (4, 1)])
 def test_refinement_under_spmd_partition(mesh_shape):
-    # sweep_dtype refinement under the explicit shard_map partition
-    # (VERDICT r3 item 3): the bf16 error-equation V-cycle runs
+    # sweep_dtype refinement under the explicit shard_map partition:
+    # the bf16 error-equation V-cycle runs
     # shard-locally with deep-halo ppermute exchange; residual /
     # correction / metric stay f32.  Matches the single-device mixed
     # solve to refinement tolerance.

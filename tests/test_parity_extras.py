@@ -72,7 +72,7 @@ def test_wcycle_solver_mode():
 def test_fast_scheme_converges():
     # scheme='fast' (rbgs 1+1).  The 2-cycle collapse is a large-size
     # effect (r0 ~ ||f||*4/h^2, so the relative gate loosens as h
-    # shrinks: 2 cycles at 4096^2 on TPU, ~9 at this toy size); here we
+    # shrinks: 2 cycles at 4096^2, ~9 at this toy size); here we
     # pin convergence and that the cheaper cycle never needs more than
     # a few extra cycles over tuned
     spec = Spec(size=64, dtype="float64", backend="xla", scheme="fast",

@@ -1,5 +1,5 @@
 """Solver API tests: reference behavioral surface (`cpu.lua:173-216`)
-plus the TPU-native on-device solve loop."""
+plus the on-device solve loop."""
 
 import jax.numpy as jnp
 import numpy as np

@@ -6,7 +6,6 @@ could never express."""
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 
 from mgpoisson import MultigridPoisson, Spec, oracle
 from mgpoisson.cycle.vcycle import v_cycle
@@ -120,32 +119,9 @@ def test_solve_batched_fixed_cycles():
     assert errs.shape == (2,)
 
 
-def test_solve_batched_pallas_tuple_loop(monkeypatch):
-    """The Pallas batched path (tuple-carry loop — jax.vmap has no
-    batching rule for the manual-DMA kernels, and slice-adjacent
-    custom calls crash XLA's TPU fusion pass) matches per-element
-    solves.  Interpret mode on CPU exercises the same dispatch."""
-    monkeypatch.setenv("MGPOISSON_PALLAS_INTERPRET", "1")
-    from mgpoisson import Spec
-    spec = Spec(size=256, dtype="float32", scheme="tuned",
-                backend="pallas", stop="residual", tol=1e-7,
-                pre_smooth=1, post_smooth=1)
-    mg = MultigridPoisson(spec)
-    rng = np.random.default_rng(3)
-    fs = jnp.asarray(rng.normal(size=(2, 256, 256)), jnp.float32)
-    psis, errs = mg.solve_batched(fs)
-    assert float(jnp.max(errs)) < 1e-7
-    for k in range(2):
-        res = mg.solve(fs[k])
-        scale = float(jnp.max(jnp.abs(res.psi)))
-        np.testing.assert_allclose(np.asarray(psis[k]) / scale,
-                                   np.asarray(res.psi) / scale,
-                                   rtol=5e-6, atol=5e-6)
-
-
 def test_solve_batched_freezes_converged_elements():
-    """Until-converged batching freezes per-element once below tol
-    (VERDICT r3 item 7): an easy element's iterate must be bit-stable
+    """Until-converged batching freezes per-element once below tol: an
+    easy element's iterate must be bit-stable
     while a hard element keeps cycling, and results match per-element
     solves."""
     # the update-RMS metric is absolute, so a tiny-amplitude copy of

@@ -121,8 +121,7 @@ def test_fmg_solve_mode_faster_start():
 
 
 def test_checkpoint_sharded_roundtrip(tmp_path):
-    # the multi-host layout (per-process shard files, VERDICT round-2
-    # item 8) exercised single-host by forcing sharded=True under a
+    # the multi-host layout (per-process shard files) exercised single-host by forcing sharded=True under a
     # (4, 2) mesh: save only addressable shards + index offsets,
     # stitch the local block back, reassemble on the mesh
     import jax

@@ -6,9 +6,9 @@ Usage: python tools/tune_scheme.py [size]
 For each (smoother, nu) candidate: times one V-cycle (chained-scan,
 overhead-cancelled), runs the full solve to 1e-10 relative residual,
 and reports cycles + amortized cycle cost.  The reference tunes its
-smoother count by hand (`cpu.lua:20` uses 7+7); this sweep is the TPU
-analog — pick the scheme whose cycles x cycle-time is smallest, not
-the one with the fewest sweeps.
+smoother count by hand (`cpu.lua:20` uses 7+7); this sweep picks the
+scheme whose cycles x cycle-time is smallest, not the one with the
+fewest sweeps.
 """
 
 import functools
@@ -19,13 +19,9 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import jax
+from mgpoisson.utils import compile_cache
 
-jax.config.update("jax_compilation_cache_dir",
-                  os.path.join(os.path.dirname(os.path.dirname(
-                      os.path.abspath(__file__))), ".jax_cache"))
-jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
+compile_cache.enable()
 
 
 def main():
